@@ -1,4 +1,4 @@
-// octvr_io — native frame IO + pipeline primitives for the TPU stitcher.
+// octvr_io — native frame IO + pipeline primitives for the stitcher.
 //
 // Role: the host-side runtime around the JAX compute path, mirroring the
 // reference's C++ plumbing (vr::Queue<T> octvr.hpp:162-182, the

@@ -1,13 +1,13 @@
-"""octvr_tpu — TPU-native (JAX/XLA/Pallas) panoramic video stitching and
-camera-rig calibration engine.
+"""octvr_tpu — JAX/XLA panoramic video stitching and camera-rig
+calibration engine.
 
 A from-scratch re-design of the capabilities of blahgeek/OpenCV-octVR:
 
 * offline: camera models -> template compiler (remap tables, masks, seams,
   vignette) -> versioned template files (VRv11-compatible)
 * online: jitted per-frame stitch (YUV420 -> remap gather -> gain
-  compensation -> feather / multiband blend -> YUV420), sharded over TPU
-  meshes with pjit/shard_map
+  compensation -> feather / multiband blend -> YUV420), sharded over
+  device meshes with shard_map
 * registration: features, matching, homography, bundle adjustment, wave
   correction (JAX autodiff)
 """

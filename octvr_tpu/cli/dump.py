@@ -21,9 +21,6 @@ import numpy as np
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("-w", type=int, default=0, dest="width")
     ap.add_argument("-h", type=int, default=0, dest="height")

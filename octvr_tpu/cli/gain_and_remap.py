@@ -71,9 +71,6 @@ def _box_blur(img, k):
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) < 3:
         print(

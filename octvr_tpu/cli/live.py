@@ -152,9 +152,6 @@ def validate_rig(rig, n_inputs, in_size):
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--rig", required=True)
     ap.add_argument("--inputs", required=True)

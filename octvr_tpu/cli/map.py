@@ -12,9 +12,6 @@ import numpy as np
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("-t", required=True, dest="template")
     ap.add_argument("-o", required=True, dest="outfile")

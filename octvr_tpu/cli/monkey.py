@@ -186,9 +186,6 @@ class H264Sink:
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("-t", required=True, dest="template")
     ap.add_argument("--inputs", required=True,

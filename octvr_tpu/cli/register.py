@@ -11,9 +11,6 @@ import sys
 
 
 def main(argv=None):
-    from . import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", required=True, dest="outfile")
     ap.add_argument("--ba", default="ray", choices=["ray", "reproj", "none"])

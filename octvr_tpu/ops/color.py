@@ -11,6 +11,7 @@ buffer; Y is the top HxW, U is rows [H, H*3/2) cols [0, W/2), V is rows
 [H, H*3/2) cols [W/2, W).
 """
 
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -47,9 +48,8 @@ def _upsample2(c):
 
 
 def up_cols_matrix(w_half):
-    """[w_half, 2*w_half] nearest column-duplication matrix: a lane
-    repeat is a slow relayout on TPU, the equivalent MXU matmul is ~2x
-    faster (bit-exact).  Pass the result as ``up_cols``."""
+    """[w_half, 2*w_half] nearest column-duplication matrix (bit-exact
+    equivalent of a column repeat).  Pass the result as ``up_cols``."""
     import numpy as np
 
     R = np.zeros((w_half, 2 * w_half), dtype=np.float32)
@@ -59,17 +59,23 @@ def up_cols_matrix(w_half):
 
 def yuv420p_to_rgb_planar(buf, dtype=jnp.float32, up_cols=None):
     """Packed YUV420P uint8 -> planar RGB float [3, H, W] in [0, 255].
-    Planar-native: no [H, W, 3] intermediate (a 3-lane minor axis forces
-    slow relayouts on TPU).  ``up_cols`` (from up_cols_matrix) routes the
-    chroma column upsample through the MXU."""
+    Planar-native: no [H, W, 3] intermediate.  ``up_cols`` (from
+    up_cols_matrix) does the chroma column upsample as a matmul.  Its
+    operands are integers in [-128, 127] and a 0/1 matrix with one
+    nonzero per column, exact in TF32 and bf16 alike, so the default
+    precision is bit-exact."""
     y, u, v = split_yuv420p(buf)
     yf = y.astype(dtype)
     if up_cols is None:
         uf = _upsample2(u).astype(dtype) - 128.0
         vf = _upsample2(v).astype(dtype) - 128.0
     else:
-        uf = (jnp.repeat(u.astype(dtype), 2, axis=0) - 128.0) @ up_cols
-        vf = (jnp.repeat(v.astype(dtype), 2, axis=0) - 128.0) @ up_cols
+        def up(c):
+            rows = jnp.repeat(c.astype(dtype), 2, axis=0) - 128.0
+            return jnp.matmul(rows, up_cols, precision=jax.lax.Precision.DEFAULT)
+
+        uf = up(u)
+        vf = up(v)
     r = yf + 1.402 * vf
     g = yf - 0.344136 * uf - 0.714136 * vf
     b = yf + 1.772 * uf
@@ -82,18 +88,14 @@ def yuv420p_to_rgb(buf, dtype=jnp.float32):
 
 
 def _box2(c):
-    """2x2 box average via strided slices — a lane-splitting reshape
-    ([H, W] -> [H/2, 2, W/2, 2]) relayouts at ~1 GB/s on TPU; strided
-    slicing the same reduction runs 11x faster (measured, v5e) and is
-    bit-exact."""
+    """2x2 box average via strided slices."""
     cr = (c[0::2] + c[1::2]) * 0.5
     return (cr[:, 0::2] + cr[:, 1::2]) * 0.5
 
 
 def down_cols_matrix(w):
-    """[w, w/2] column 2x box-mean matrix: the lane-strided half of the
-    chroma subsample relayouts well below peak on TPU; the equivalent
-    MXU matmul is faster.  Pass the result as ``down_cols``."""
+    """[w, w/2] column 2x box-mean matrix.  Pass the result as
+    ``down_cols``."""
     import numpy as np
 
     M = np.zeros((w, w // 2), dtype=np.float32)
@@ -104,8 +106,10 @@ def down_cols_matrix(w):
 def rgb_planar_to_yuv420p(rgb, down_cols=None):
     """Planar RGB float [3, H, W] in [0,255] -> packed YUV420P uint8
     [H*3/2, W].  Chroma box-averaged 2x2 before subsampling.
-    ``down_cols`` (from down_cols_matrix) routes the chroma column
-    subsample through the MXU."""
+    ``down_cols`` (from down_cols_matrix) does the chroma column
+    subsample as a matmul at HIGHEST precision: its operands are
+    fractional, and TF32 rounding (~0.1 at 255) would flip the rounding
+    of output chroma bytes."""
     r, g, b = rgb[0], rgb[1], rgb[2]
     y = 0.299 * r + 0.587 * g + 0.114 * b
     u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
@@ -115,7 +119,11 @@ def rgb_planar_to_yuv420p(rgb, down_cols=None):
         sub = _box2
     else:
         def sub(c):
-            return ((c[0::2] + c[1::2]) * 0.5) @ down_cols
+            return jnp.matmul(
+                (c[0::2] + c[1::2]) * 0.5,
+                down_cols,
+                precision=jax.lax.Precision.HIGHEST,
+            )
 
     yq = jnp.clip(jnp.round(y), 0, 255).astype(jnp.uint8)
     uq = jnp.clip(jnp.round(sub(u)), 0, 255).astype(jnp.uint8)

@@ -77,12 +77,19 @@ def laplacian_merge(dst_pyr):
     return acc
 
 
-# ------------------------------------------------------------- MXU path
+# ---------------------------------------------------------- matmul path
 #
-# XLA depthwise convs reach only ~10 GB/s effective on TPU for the 5-tap
-# pyramid filters; expressing the separable filter as two *dense banded
-# matmuls* puts the work on the MXU instead (~10x faster at 4K).  The
-# banded matrices are built once per distinct axis length at plan time.
+# The blends express the separable 5-tap filter as two dense banded
+# matmuls, with the banded matrices built once per distinct axis length
+# at plan time.  Both passes take their operands in the input's dtype
+# and accumulate in float32.  A float32 blend is the precise reference
+# path: its matmuls run at HIGHEST, because TF32's ~1e-3 relative
+# rounding (~0.25 at 255 per level) would show in its output.  A
+# bfloat16 blend (the explicit low-precision choice) rounds the first
+# pass's float32 result back to bfloat16 before the second, so both
+# passes are bf16 x bf16 products, which HIGHEST leaves exact.
+
+_HI = lax.Precision.HIGHEST
 
 
 def down_matrix(n: int) -> np.ndarray:
@@ -114,14 +121,25 @@ def up_matrix(n: int) -> np.ndarray:
     return K
 
 
+def _sep_mm(x, kv, kh):
+    v = jnp.einsum(
+        "oh,chw->cow", kv, x, preferred_element_type=jnp.float32, precision=_HI
+    )
+    return jnp.einsum(
+        "pw,cow->cop",
+        kh,
+        v.astype(x.dtype),
+        preferred_element_type=jnp.float32,
+        precision=_HI,
+    )
+
+
 def pyr_down_mm(x, kv, kh):
-    """[C, H, W] -> [C, H/2, W/2] via two MXU matmuls.
+    """[C, H, W] -> [C, H/2, W/2] via two banded matmuls.
     kv: [H/2, H], kh: [W/2, W]."""
-    v = jnp.einsum("oh,chw->cow", kv, x, preferred_element_type=jnp.float32)
-    return jnp.einsum("pw,cow->cop", kh, v, preferred_element_type=jnp.float32)
+    return _sep_mm(x, kv, kh)
 
 
 def pyr_up_mm(x, kv, kh):
     """[C, h, w] -> [C, 2h, 2w].  kv: [2h, h], kh: [2w, w]."""
-    v = jnp.einsum("oh,chw->cow", kv, x, preferred_element_type=jnp.float32)
-    return jnp.einsum("pw,cow->cop", kh, v, preferred_element_type=jnp.float32)
+    return _sep_mm(x, kv, kh)

@@ -1,33 +1,30 @@
-"""Multi-chip sharded stitching — the full product on a device mesh.
+"""Multi-device sharded stitching — the full product on a device mesh.
 
-TPU-native scaling design (SURVEY.md §2.5/§5): a 2-D device mesh
-``('data', 'space')`` —
+A 2-D device mesh ``('data', 'space')`` (SURVEY.md §2.5/§5):
 
-* ``data``: frame-level data parallelism (each chip stitches different
-  frames of the stream; linear throughput scaling for video).
-* ``space``: spatial tensor parallelism — the output canvas is split into
-  horizontal row *bands*, one per chip, with halo rows *recomputed* on
-  both neighbors instead of exchanged (remap is pure per-pixel gather,
-  so recompute is cheaper than an ICI round-trip).  For wide multiband
+* ``data``: frame-level data parallelism (each device stitches different
+  frames of the stream).
+* ``space``: spatial parallelism — the output canvas is split into
+  horizontal row *bands*, one per device, with halo rows *recomputed* on
+  both neighbors instead of exchanged (remap is a pure per-pixel gather,
+  so recompute is cheaper than a round-trip).  For wide multiband
   blends the halo is kept SMALL by a two-level decomposition: fine
   pyramid levels 0..L-1 run band-locally under a ``5 * 2^L`` halo, and
   the coarse levels L..B run redundantly on the global canvas from an
   all-gathered level-L Gaussian (a few hundred KB per 4K frame — the
-  only image bytes that ever cross chips).  Measured on the real chip,
-  the single-level ``5 * 2^B`` halo capped scaling efficiency at
-  0.59/0.37/0.21 for S=2/4/8 at blend=128; the split halo restores the
-  ext/bh ratio to ~1 + 48/bh.  Remaining cross-chip traffic: the
-  level-L gather plus a psum of the tiny exposure-gain sums.
+  only image bytes that ever cross devices); a single-level ``5 * 2^B``
+  halo would make the recomputed band several times the band itself.
+  Remaining cross-device traffic: the level-L gather plus a psum of the
+  tiny exposure-gain sums.
 
-The per-shard compute path is the SAME one the single-chip ``Mapper``
-runs (VERDICT r1 item 3): batched Pallas remap kernel (per-shard plans
-are band slices of the full-canvas maps, homogenized so they stack on a
-leading S axis), MXU banded-matmul blend pyramids, working-grid exposure
-gains on the identical global subsample grid, overlay paste, and packed
-YUV420P output per band.  On a CPU mesh (the multichip dry-run) the
-Pallas kernel runs in interpret mode — same program, same plans.
+The per-shard compute path is the SAME one the single-device ``Mapper``
+runs: per-input packed remap gathers (``ops/remap.py``; per-shard plans
+are built over each band's window maps and stacked on a leading S axis),
+banded-matmul blend pyramids, working-grid exposure gains on the
+identical global subsample grid, overlay paste, and packed YUV420P
+output per band.
 
-Inputs are replicated across 'space' (every chip gathers from the full
+Inputs are replicated across 'space' (every device gathers from the full
 camera frames); the per-shard gather tables, blend weights and masks are
 *sharded constants* carried on the leading S axis.
 """
@@ -53,23 +50,21 @@ from ..ops.color import (
     up_cols_matrix,
     yuv420p_to_rgb_planar,
 )
-from ..ops.pallas_remap import (
-    choose_patches,
-    merge_remap_plans,
-    pack_pairs,
-    pallas_remap_apply_batched,
-    pallas_remap_plan,
-)
 from ..ops.pyramid import down_matrix, pyr_down_mm, pyr_up_mm, up_matrix
-from ..ops.remap import pack_rgb
+from ..ops.remap import (
+    pack_planes,
+    remap_apply_packed,
+    remap_plan,
+    stack_remap_plans,
+)
 from ..ops.resize import resize_bilinear
-from ..stitch.blenders import WEIGHT_EPS, np_pyr_down
+from ..stitch.blenders import WEIGHT_EPS, gather_dtype, np_pyr_down
 from ..stitch.gain import ALPHA, BETA
 from ..stitch.gain_blocks import (
     assemble_and_solve_lattice,
     build_blocks_gain_plan,
 )
-from ..stitch.mapper import WORKING_MEGAPIX
+from ..stitch.mapper import DEFAULT_BLEND_DTYPE, WORKING_MEGAPIX
 from ..template.compiler import MapperTemplate
 from ..utils.pytree import register_plan
 
@@ -104,11 +99,6 @@ class ShardedPlan:
     pipeline: str = "rgb"  # "rgb" | "yuv420"
     num_bands_uv: int = 0
     frame_format: str = "yuv420p"  # "yuv420p" | "nv12" (in AND out)
-    # equal-size camera groups: one batched Mosaic kernel per size group
-    # (the reference Mapper handles per-input sizes uniformly,
-    # mapper.cpp:47-191); remap/remap_uv keep the flat single-group
-    # fields for tools
-    group_idx: tuple = ()
     # output resize (mapper.cpp:285-311 out_size semantics): Y resizes
     # at full res, chroma at half res, each band emitting its own
     # output-row slice from its extended (halo-covered) rows
@@ -125,23 +115,11 @@ class ShardedPlan:
     # common case: side cameras, or S == 1 — placement is a STATIC
     # slice), else None and the offset rides in the roi_oy leaf
     roi_oy_static: tuple = ()
-    # per-shard SOURCE-row windows: each shard preps/gathers only the
-    # camera rows its band's maps sample, so the input stage divides
-    # with S instead of being a fixed full-resolution cost (the source-
-    # side analogue of the per-output ROI fan-out, async.cpp:247-259).
-    # src_h[i]: sliced source height (== camera height -> no slicing);
-    # src_row0_static[i]: row offset when identical on every shard,
-    # else None and the offset rides in the src_row0 leaf
-    src_h: tuple = ()
-    src_row0_static: tuple = ()
-    src_row0: object = None  # [S, ncam+nov] i32
     # sharded constants, leading axis S
     roi_oy: object = None  # [S, ncam+nov] i32 per-shard band-row offsets
-    remap: object = None  # BatchedRemapPlan with [S, ...] leaves
-    remap_uv: object = None  # half-res chroma plan (yuv420 pipeline)
-    # per size group: stacked BatchedRemapPlans with [S, ...] leaves
-    remap_groups: tuple = ()
-    remap_uv_groups: tuple = ()
+    # per input: RemapPlan over its band window with [S, ...] leaves
+    remaps: tuple = ()
+    remaps_uv: tuple = ()  # half-res chroma plans (yuv420 pipeline)
     # per-shard output-resize row tables (band-local gather indices) and
     # replicated column tables; None when out_size == canvas_size
     resize_v: object = None  # dict(y0, y1: [S, obh] i32; fy: [S, obh] f32)
@@ -189,29 +167,20 @@ class ShardedPlan:
     vignette_half: object = None  # [ncam+nov, Hf/2, Wf/2] f32
     gain_b: object = None  # [ncam] f32
     gain_A_static: object = None  # [ncam, ncam] f32
-    chroma_up: object = None  # [Wf/2, Wf] f32 MXU chroma upsample
-    chroma_down: object = None  # [Wp, Wp/2] f32 MXU chroma subsample
-    pool_cols_roi: object = None  # dict {iw: [iw, iw/stride]} MXU pool
+    chroma_up: object = None  # [Wf/2, Wf] f32 chroma upsample matrix
+    chroma_down: object = None  # [Wp, Wp/2] f32 chroma subsample matrix
+    pool_cols_roi: object = None  # dict {iw: [iw, iw/stride]} pool matrix
     pool_cols_roi_uv: object = None  # dict {iw/2: [iw/2, iw/stride]}
     down_mats: dict = field(default_factory=dict)  # {n: [n/2, n]}
     up_mats: dict = field(default_factory=dict)  # {n: [2n, n]}
-    # single-device emulation of an S-way mesh (tools/
-    # scaling_projection.py ONLY): allows the split blend's all-gather
-    # shape shortfall to be tiled up for timing-faithful runs.  Off by
-    # default: a real mesh must never silently produce tiled (value-
-    # wrong) frames (round-5 advisor fix).
-    emulate_space: bool = False
 
 
 register_plan(
     ShardedPlan,
     children=(
         "roi_oy",
-        "src_row0",
-        "remap",
-        "remap_uv",
-        "remap_groups",
-        "remap_uv_groups",
+        "remaps",
+        "remaps_uv",
         "resize_v",
         "resize_h",
         "resize_v_uv",
@@ -267,7 +236,6 @@ register_plan(
         "pipeline",
         "num_bands_uv",
         "frame_format",
-        "group_idx",
         "out_size",
         "obh",
         "oW",
@@ -277,9 +245,6 @@ register_plan(
         "ghalo",
         "rois",
         "roi_oy_static",
-        "src_h",
-        "src_row0_static",
-        "emulate_space",
     ),
 )
 
@@ -287,11 +252,8 @@ register_plan(
 # replicated
 _SPACE_FIELDS = (
     "roi_oy",
-    "src_row0",
-    "remap",
-    "remap_uv",
-    "remap_groups",
-    "remap_uv_groups",
+    "remaps",
+    "remaps_uv",
     "resize_v",
     "resize_v_uv",
     "coarse_row_idx",
@@ -349,87 +311,6 @@ def _full_canvas_maps(mt: MapperTemplate, Hp, Wp):
     return maps
 
 
-def _stack_remap_plans(plans):
-    """Stack homogenized per-shard BatchedRemapPlans leaf-wise onto a
-    leading S axis (statics are asserted identical)."""
-    leaves, treedef = jax.tree.flatten(plans[0])
-    for p in plans[1:]:
-        l2, td2 = jax.tree.flatten(p)
-        assert td2 == treedef, "per-shard remap plans must share statics"
-    stacked = [
-        np.stack([jax.tree.flatten(p)[0][i] for p in plans])
-        for i in range(len(leaves))
-    ]
-    return jax.tree.unflatten(treedef, stacked)
-
-
-def _homogenized_band_remap(band_maps, Hf, Wf, paired=False):
-    """Per-shard batched remap plans over band map slices, homogenized
-    (common patches, (KH, KW), group G, padded grids/residuals) and
-    stacked on a leading S axis.  ``Hf`` may be a per-input list of
-    source heights (concat-source mode — per-shard src-row slices)."""
-    from ..ops.pallas_remap import PATCH_CANDIDATES, _patch_row_cost
-
-    n_in = len(band_maps[0])
-    hs = Hf if isinstance(Hf, (list, tuple)) else [Hf] * n_in
-    patches = []
-    for i in range(n_in):
-        costs = [
-            sum(
-                _patch_row_cost(bm[i][0], bm[i][1], hs[i], Wf, p)
-                for bm in band_maps
-            )
-            for p in PATCH_CANDIDATES
-        ]
-        patches.append(PATCH_CANDIDATES[int(np.argmin(costs))])
-    KH = KW = 0
-    for bm in band_maps:
-        for i, ((m1, m2), p) in enumerate(zip(bm, patches)):
-            probe = pallas_remap_plan(
-                m1, m2, hs[i], Wf, patch=p, paired=paired
-            )
-            KH = max(KH, probe.KH)
-            KW = max(KW, probe.KW)
-    shard_plans = [
-        merge_remap_plans(
-            bm,
-            Hf,
-            Wf,
-            force_kh=KH,
-            force_kw=KW,
-            force_patches=patches,
-            paired=paired,
-        )
-        for bm in band_maps
-    ]
-    # common tiles-per-step group G, then pad to the max step count so
-    # every shard's plan stacks leaf-wise; the expensive per-input plans
-    # are reused (prebuilt_plans) — only the cheap group/pad step reruns
-    per_input = [p.per_input_plans for p in shard_plans]
-    Gc = max(p.G for p in shard_plans)
-    shard_plans = [
-        merge_remap_plans(bm, Hf, Wf, group=Gc, prebuilt_plans=pi)
-        for bm, pi in zip(band_maps, per_input)
-    ]
-    pad_grid = max(p.grid_nt for p in shard_plans)
-    pad_res = [
-        max(p.res[i][0].shape[0] for p in shard_plans) for i in range(n_in)
-    ]
-    shard_plans = [
-        merge_remap_plans(
-            bm,
-            Hf,
-            Wf,
-            group=Gc,
-            pad_grid_nt=pad_grid,
-            pad_res=pad_res,
-            prebuilt_plans=pi,
-        )
-        for bm, pi in zip(band_maps, per_input)
-    ]
-    return _stack_remap_plans(shard_plans)
-
-
 def build_sharded_plan(
     mt: MapperTemplate,
     in_sizes,
@@ -441,7 +322,6 @@ def build_sharded_plan(
     scale_output=None,
     frame_format: str = "yuv420p",
     coarse_split=None,
-    src_windows: bool = False,
 ) -> ShardedPlan:
     """Per-input aligned band ROIs (the reference's per-region
     ROI-cropped Mapper work, async.cpp:247-259 + the aligned-ROI
@@ -474,12 +354,6 @@ def build_sharded_plan(
     out_size = tuple(scale_output) if scale_output else (W, H)
     if pipeline == "yuv420" or frame_format == "nv12":
         assert out_size[0] % 2 == 0 and out_size[1] % 2 == 0
-    # mixed camera sizes: one batched kernel per equal-size group (the
-    # single-chip Mapper's per-size-group design, stitch/mapper.py)
-    by_size = {}
-    for idx, hw in enumerate(in_sizes):
-        by_size.setdefault(hw, []).append(idx)
-    group_idx = tuple(tuple(v) for v in by_size.values())
 
     if blend > 0:
         B = int(math.ceil(math.log(blend) / math.log(2.0)) - 1.0)
@@ -502,10 +376,8 @@ def build_sharded_plan(
     # two-level split decision (communication-avoiding halos): band-
     # local fine levels 0..L-1 need only a 5*2^L halo; levels L..B run
     # on the global canvas from an all-gathered level-L Gaussian, so
-    # the halo recompute stops scaling with the blend width.  The
-    # measured single-level curve (tools/scaling_projection.py) tracks
-    # ext/bh almost exactly — halo 320 at blend=128 capped efficiency
-    # at 0.59/0.37/0.21 for S=2/4/8; with halo 5*2^L it projects >0.8.
+    # the halo recompute stops scaling with the blend width (halo 320
+    # at blend=128 single-level, against 5*2^L = 20 rows split).
     if coarse_split is None:
         L = 2 if (kind == "multiband" and n_space > 1 and B > 2) else B
     else:
@@ -665,8 +537,9 @@ def build_sharded_plan(
             o : o + (hmax >> level), (x0 >> level) : ((x0 + iw) >> level)
         ]
 
-    # ---- batched Pallas remap plans over window map slices, one per
-    # shard, homogenized; kernel output is window-sized directly.
+    # ---- remap plans over window map slices: one per input and shard,
+    # stacked on S (every shard's window of an input has the same
+    # [hmax_i, iw_i] shape; pixels outside the maps have weight 0).
     # Multiband camera maps are reflect-extended about the union box:
     # reflecting MAP values reproduces the warped-image reflection the
     # single-chip pyramid applies at its aligned-ROI boundary exactly
@@ -688,90 +561,19 @@ def build_sharded_plan(
     def _cam_refl(i):
         return kind == "multiband" and i < ncam
 
-    band_maps = [
-        [
-            (
-                wslice(m1, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
-                wslice(m2, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
-            )
-            for i, (m1, m2) in enumerate(maps)
-        ]
-        for s in range(S)
-    ]
-    # ---- per-shard SOURCE-row windows: compute the camera rows each
-    # shard's window maps actually sample; the input prep and gather
-    # tables then run on that slice (group-uniform height so per-shard
-    # plans still stack leaf-wise)
-    src_h = [0] * ntotal
-    src_row0 = np.zeros((S, ntotal), dtype=np.int32)
-    spans = np.zeros((S, ntotal, 2), dtype=np.int64)
-    for i in range(ntotal):
-        Hi = in_sizes[i][0]
-        for s in range(S):
-            m2 = band_maps[s][i][1]
-            valid = m2 >= 0
-            if valid.any():
-                py = m2[valid].astype(np.float64) * Hi - 0.5
-                lo = max(0, int(np.floor(py.min())) - 4)
-                hi_ = min(Hi, int(np.ceil(py.max())) + 5)
-            else:
-                lo, hi_ = 0, min(Hi, 8)
-            spans[s, i] = (lo, hi_)
-    for i in range(ntotal):
-        # per-INPUT slice heights: inputs of one size group keep their
-        # own heights via the concat-source kernel layout (row offsets
-        # baked into the window tables — no extra launches)
-        Hi = in_sizes[i][0]
-        h_i = int((spans[:, i, 1] - spans[:, i, 0]).max())
-        h_i = min(Hi, _round_up(h_i, 4) + 4)
-        if not src_windows or Hi - h_i < 16 or S == 1:
-            # measured FLAT at 4K (BASELINE r4): the input prep the
-            # slicing saves is small on the yuv420 path (~0.1 ms pack),
-            # and re-homogenized group KH can shift a shard's fan —
-            # opt-in until it wins somewhere concrete
-            h_i = Hi
-        src_h[i] = h_i
-        for s in range(S):
-            lo = min(max(0, int(spans[s, i, 0])), Hi - h_i)
-            src_row0[s, i] = (lo // 2) * 2
-    src_h = tuple(src_h)
-    src_static = tuple(
-        (
-            int(src_row0[0, i])
-            if all(src_row0[s, i] == src_row0[0, i] for s in range(S))
-            else None
+    remaps = tuple(
+        stack_remap_plans(
+            [
+                remap_plan(
+                    wslice(m1, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
+                    wslice(m2, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
+                    *in_sizes[i],
+                )
+                for s in range(S)
+            ]
         )
-        for i in range(ntotal)
+        for i, (m1, m2) in enumerate(maps)
     )
-    # rebase the window maps onto the sliced source: py' = py - row0,
-    # normalized by the sliced height
-    for i in range(ntotal):
-        Hi = in_sizes[i][0]
-        if src_h[i] >= Hi:
-            continue
-        for s in range(S):
-            m1, m2 = band_maps[s][i]
-            valid = m2 >= 0
-            m2b = m2.copy()
-            m2b[valid] = (
-                m2[valid].astype(np.float64) * Hi - src_row0[s, i]
-            ) / src_h[i]
-            band_maps[s][i] = (m1, m2b.astype(np.float32))
-
-    remap_groups = tuple(
-        _homogenized_band_remap(
-            [[band_maps[s][i] for i in idxs] for s in range(S)],
-            (
-                [src_h[i] for i in idxs]
-                if any(src_h[i] < in_sizes[i][0] for i in idxs)
-                else in_sizes[idxs[0]][0]
-            ),
-            in_sizes[idxs[0]][1],
-            paired=(pipeline == "yuv420"),
-        )
-        for idxs in group_idx
-    )
-    remap = remap_groups[0] if len(group_idx) == 1 else None
 
     B_uv = max(1, B - 1) if kind == "multiband" else 0
     plan = ShardedPlan(
@@ -790,9 +592,7 @@ def build_sharded_plan(
         stride=stride,
         N=(),
         pairs=(),
-        remap=remap,
-        remap_groups=remap_groups,
-        group_idx=group_idx,
+        remaps=remaps,
         pipeline=pipeline,
         frame_format=frame_format,
         out_size=out_size,
@@ -803,9 +603,6 @@ def build_sharded_plan(
         rois=tuple(rois),
         roi_oy_static=tuple(oy_static),
         roi_oy=oy_table,
-        src_h=src_h,
-        src_row0_static=src_static,
-        src_row0=src_row0,
     )
 
     bh2, halo2 = bh // 2, halo // 2
@@ -861,52 +658,20 @@ def build_sharded_plan(
                 )
                 for i, (m1, m2) in enumerate(maps_uv)
             ]
-        band_maps_uv = [
-            [
-                (
-                    wslice_uv(m1, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
-                    wslice_uv(m2, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
-                )
-                for i, (m1, m2) in enumerate(maps_uv)
-            ]
-            for s in range(S)
-        ]
-        # rebase chroma maps onto the sliced half-res source (row0/2,
-        # h/2; the full-res margin of +-4 rows covers the chroma taps)
-        for i in range(ntotal):
-            Hi2 = in_sizes[i][0] // 2
-            if src_h[i] >= in_sizes[i][0]:
-                continue
-            for s in range(S):
-                m1, m2 = band_maps_uv[s][i]
-                valid = m2 >= 0
-                if valid.any():
-                    py = m2[valid].astype(np.float64) * Hi2 - 0.5
-                    lo2 = src_row0[s, i] // 2
-                    assert py.min() >= lo2 - 1 and py.max() <= (
-                        lo2 + src_h[i] // 2
-                    ), "chroma taps escape the source-row slice"
-                m2b = m2.copy()
-                m2b[valid] = (
-                    m2[valid].astype(np.float64) * Hi2
-                    - src_row0[s, i] // 2
-                ) / (src_h[i] // 2)
-                band_maps_uv[s][i] = (m1, m2b.astype(np.float32))
-        plan.remap_uv_groups = tuple(
-            _homogenized_band_remap(
-                [[band_maps_uv[s][i] for i in idxs] for s in range(S)],
-                (
-                    [src_h[i] // 2 for i in idxs]
-                    if any(src_h[i] < in_sizes[i][0] for i in idxs)
-                    else in_sizes[idxs[0]][0] // 2
-                ),
-                in_sizes[idxs[0]][1] // 2,
-                paired=True,
+        plan.remaps_uv = tuple(
+            stack_remap_plans(
+                [
+                    remap_plan(
+                        wslice_uv(m1, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
+                        wslice_uv(m2, s, i, pad_value=-1.0, reflect=_cam_refl(i)),
+                        in_sizes[i][0] // 2,
+                        in_sizes[i][1] // 2,
+                    )
+                    for s in range(S)
+                ]
             )
-            for idxs in group_idx
+            for i, (m1, m2) in enumerate(maps_uv)
         )
-        if len(group_idx) == 1:
-            plan.remap_uv = plan.remap_uv_groups[0]
 
     # ---- full-canvas masks (u8) per input
     full_masks = []
@@ -1029,7 +794,7 @@ def build_sharded_plan(
                 )
                 ridx[s] = r
             plan.coarse_row_idx = ridx
-        # MXU banded matrices for every axis length the blend touches
+        # banded pyramid matrices for every axis length the blend touches
         down_mats, up_mats = {}, {}
         lengths = set()
         for l in range(B + 1):
@@ -1049,9 +814,7 @@ def build_sharded_plan(
             # bf16 pyramid constants (same 16-bit role as the
             # reference's CV_16S GPU pyramids); accumulation stays f32
             # in the matmuls
-            import ml_dtypes
-
-            bd = np.dtype(ml_dtypes.bfloat16)
+            bd = np.dtype(jnp.bfloat16)
             plan.weight_pyrs = [
                 [p.astype(bd) for p in lvl] for lvl in plan.weight_pyrs
             ]
@@ -1167,9 +930,7 @@ def build_sharded_plan(
                     plan.down_mats[nl] = down_matrix(nl)
                     plan.up_mats[nl >> 1] = up_matrix(nl >> 1)
             if blend_dtype == "bfloat16":
-                import ml_dtypes
-
-                bd = np.dtype(ml_dtypes.bfloat16)
+                bd = np.dtype(jnp.bfloat16)
                 plan.weight_pyrs_uv = [
                     [p.astype(bd) for p in lvl]
                     for lvl in plan.weight_pyrs_uv
@@ -1387,52 +1148,6 @@ def _win_oy(plan: ShardedPlan, i: int, div: int = 1):
     if o is not None:
         return o // div
     return plan.roi_oy[i] // div
-
-
-def _src_row0(plan: ShardedPlan, i: int, div: int = 1):
-    """Input i's source-row slice offset (static when identical on
-    every shard, else the tiny per-shard leaf)."""
-    o = plan.src_row0_static[i]
-    if o is not None:
-        return o // div
-    return plan.src_row0[i] // div
-
-
-def _slice_src(plan: ShardedPlan, buf, i):
-    """Per-shard source-row slice of a packed YUV420P/NV12 camera
-    buffer: luma rows [row0, row0+src_h) plus the matching chroma-block
-    rows, reassembled as a valid packed buffer of height src_h*3/2.
-    The remap plans are rebased onto this slice at build time, so the
-    input prep (split/vignette/pack) runs at slice size — the per-chip
-    input work divides with S (src windows, ShardedPlan.src_h)."""
-    Hi = buf.shape[0] * 2 // 3
-    h = plan.src_h[i]
-    if h >= Hi:
-        return buf
-    Wi = buf.shape[1]
-    r0 = _src_row0(plan, i)
-    if isinstance(r0, (int, np.integer)):
-        y = buf[r0 : r0 + h]
-        uv = buf[Hi + r0 // 2 : Hi + r0 // 2 + h // 2]
-    else:
-        y = jax.lax.dynamic_slice(buf, (r0, 0), (h, Wi))
-        uv = jax.lax.dynamic_slice(
-            buf, (Hi + r0 // 2, 0), (h // 2, Wi)
-        )
-    return jnp.concatenate([y, uv], axis=0)
-
-
-def _slice_rows(plan: ShardedPlan, arr, i, h, div=1):
-    """Rows [row0/div, row0/div + h) of a per-input constant (vignette
-    maps) matching the source-row slice."""
-    if h >= arr.shape[0]:
-        return arr
-    r0 = _src_row0(plan, i, div=div)
-    if isinstance(r0, (int, np.integer)):
-        return arr[r0 : r0 + h]
-    return jax.lax.dynamic_slice(
-        arr, (r0,) + (0,) * (arr.ndim - 1), (h,) + arr.shape[1:]
-    )
 
 
 def _paste_add(dst, src, oy, ox):
@@ -1769,27 +1484,14 @@ def _blend_windows_split(
     )  # [c, Hp_v>>L, sum(iw>>L)]
     expected = co["S"] * (bh_v >> L)
     if full.shape[1] != expected:
-        # single-device emulation of an S-way mesh (tools/
-        # scaling_projection.py): replicate the local band rows so the
-        # coarse path runs at true global size — timing-faithful; value
-        # parity is covered by the real multi-device mesh tests.  Only
-        # reachable behind the explicit plan flag: a real mesh whose
-        # all-gather comes up short must fail loudly, never emit
-        # plausible-looking tiled frames (round-5 advisor fix).
-        if not co.get("emulate", False):
-            raise ValueError(
-                f"split blend all-gather returned {full.shape[1]} "
-                f"level-{L} rows, expected {expected} "
-                f"(S={co['S']} x {bh_v >> L}): the mesh 'space' axis "
-                "does not match the plan. Set emulate_space=True on "
-                "the plan only for single-device timing emulation."
-            )
-        if expected % full.shape[1] != 0:
-            raise ValueError(
-                f"emulated split blend rows {full.shape[1]} do not "
-                f"divide the expected {expected}"
-            )
-        full = jnp.tile(full, (1, expected // full.shape[1], 1))
+        # a mesh whose all-gather comes up short must fail loudly, never
+        # emit plausible-looking partial frames
+        raise ValueError(
+            f"split blend all-gather returned {full.shape[1]} "
+            f"level-{L} rows, expected {expected} "
+            f"(S={co['S']} x {bh_v >> L}): the mesh 'space' axis "
+            "does not match the plan"
+        )
     Hp_L = full.shape[1]
 
     nl = B - L + 1
@@ -1842,8 +1544,7 @@ def _overlay_band(plan, ov_window, k, ext_v, W_v, div=1):
     )
 
 
-def _stitch_band(plan: ShardedPlan, frames, interpret, out_format,
-                 gains_in=None):
+def _stitch_band(plan: ShardedPlan, frames, out_format, gains_in=None):
     """One frame set on one shard.  frames: per-input list of
     [Hi*3/2, Wi] u8 (packed YUV420P, or NV12 when
     plan.frame_format == "nv12").  ``gains_in`` ([ncam] f32, optional)
@@ -1860,35 +1561,24 @@ def _stitch_band(plan: ShardedPlan, frames, interpret, out_format,
     ntotal = ncam + plan.num_overlays
     ext, Wp, halo, bh = plan.ext, plan.Wp, plan.halo, plan.bh
 
-    packed = []
+    warped = []
     for i in range(ntotal):
-        buf = _slice_src(plan, frames[i], i)
+        buf = frames[i]
         if plan.frame_format == "nv12":
             buf = merge_yuv420p(*split_nv12(buf))
         rgb = yuv420p_to_rgb_planar(
             buf, up_cols=plan.chroma_up[buf.shape[1]]
         )
-        vig = _slice_rows(plan, plan.vignette[i], i, rgb.shape[1])
-        rgb = jnp.clip(rgb * vig[None], 0.0, 255.0)
-        packed.append(pack_rgb(rgb).reshape(rgb.shape[1], rgb.shape[2]))
-
-    # multiband-bf16 plans take bf16 straight out of the kernel (the
-    # store casts; no XLA convert on the untile product)
-    remap_dtype = (
-        plan.compute_dtype if plan.blend_kind == "multiband" else "float32"
-    )
-    # one batched kernel launch per equal-size camera group
-    warped = [None] * ntotal
-    for idxs, rp in zip(plan.group_idx, plan.remap_groups):
-        srcs = [packed[i] for i in idxs]
-        outs = pallas_remap_apply_batched(
-            srcs if rp.concat_heights else jnp.stack(srcs),
-            rp,
-            interpret=interpret,
-            out_dtype=remap_dtype,
+        rgb = jnp.clip(rgb * plan.vignette[i][None], 0.0, 255.0)
+        # [3, hmax_i, iw_i] (window-sized)
+        warped.append(
+            remap_apply_packed(
+                pack_planes(rgb), plan.remaps[i], nc=3,
+                out_dtype=gather_dtype(
+                    plan.blend_kind, plan.compute_dtype, i, plan.num_inputs
+                ),
+            )
         )
-        for i, o in zip(idxs, outs):
-            warped[i] = o  # [3, hmax_i, iw_i] (window-sized)
 
     # exposure gains: working-grid box means (identical global block
     # grid to the single-chip Mapper), psum'd across 'space'
@@ -1942,7 +1632,6 @@ def _stitch_band(plan: ShardedPlan, frames, interpret, out_format,
             halo=halo,
             bh=bh,
             S=plan.S,
-            emulate=plan.emulate_space,
         )
     band = _blend_windows(
         plan,
@@ -1987,160 +1676,45 @@ def _stitch_band(plan: ShardedPlan, frames, interpret, out_format,
     return out, gains
 
 
-def _prep_band_yuv(plan: ShardedPlan, frames):
-    """Input prep of the yuv420 band stitch: source slice, plane split,
-    vignette, quantize, pair-pack.  Returns (packs_y, packs_uv)."""
+def _stitch_band_yuv(plan: ShardedPlan, frames, out_format, gains_in=None):
+    """YUV420-native band stitch (see stitch/yuv_mode.py): the luma plane
+    gathered at full band resolution (nc=1) and U|V packed into one
+    plane gathered at half resolution (nc=2), per-plane window blends,
+    centered chroma, packed YUV420P (or NV12) band output.  frames:
+    per-input list of [Hi*3/2, Wi] u8.  ``gains_in`` ([ncam] f32,
+    optional) injects another output's solved gains and skips the
+    pairwise solve (async.cpp:75-91 cross-output sharing)."""
+    assert out_format == "yuv420p"
     ntotal = plan.num_inputs + plan.num_overlays
-    packs_y, packs_uv = [], []
+    warped_y, warped_uv = [], []
     for i in range(ntotal):
-        buf = _slice_src(plan, frames[i], i)
+        buf = frames[i]
         if plan.frame_format == "nv12":
             y, u, v = split_nv12(buf)
         else:
             y, u, v = split_yuv420p(buf)
-        vig = _slice_rows(plan, plan.vignette[i], i, y.shape[0])
-        yf = jnp.clip(y.astype(jnp.float32) * vig, 0.0, 255.0)
-        vh = _slice_rows(
-            plan, plan.vignette_half[i], i, y.shape[0] // 2, div=2
-        )
+        yf = jnp.clip(y.astype(jnp.float32) * plan.vignette[i], 0.0, 255.0)
+        vh = plan.vignette_half[i]
         uf = jnp.clip((u.astype(jnp.float32) - 128.0) * vh + 128.0, 0.0, 255.0)
         vf = jnp.clip((v.astype(jnp.float32) - 128.0) * vh + 128.0, 0.0, 255.0)
-        yq = jnp.clip(jnp.round(yf), 0, 255).astype(jnp.int32)
-        uq = jnp.clip(jnp.round(uf), 0, 255).astype(jnp.int32)
-        vq = jnp.clip(jnp.round(vf), 0, 255).astype(jnp.int32)
-        packs_y.append(pack_pairs([yq]))
-        packs_uv.append(pack_pairs([uq, vq]))
-    return packs_y, packs_uv
-
-
-def _stitch_band_yuv(plan: ShardedPlan, frames, interpret, out_format,
-                     gains_in=None):
-    """YUV420-native band stitch (see stitch/yuv_mode.py): pair-packed
-    1-channel Y fan at full band resolution + 2-channel chroma fan at
-    half resolution, per-plane window blends, centered chroma, packed
-    YUV420P (or NV12) band output.  frames: per-input list of
-    [Hi*3/2, Wi] u8.  ``gains_in`` ([ncam] f32, optional) injects
-    another output's solved gains and skips the pairwise solve
-    (async.cpp:75-91 cross-output sharing)."""
-    assert out_format == "yuv420p"
-    ncam = plan.num_inputs
-    ntotal = ncam + plan.num_overlays
-
-    remap_dtype = (
-        plan.compute_dtype if plan.blend_kind == "multiband" else "float32"
-    )
-    packs_y, packs_uv = _prep_band_yuv(plan, frames)
-
-    # one batched kernel launch per plane per equal-size camera group
-    warped_y = [None] * ntotal
-    warped_uv = [None] * ntotal
-    for idxs, rp_y, rp_uv in zip(
-        plan.group_idx, plan.remap_groups, plan.remap_uv_groups
-    ):
-        src_y = [packs_y[i] for i in idxs]
-        outs_y = pallas_remap_apply_batched(
-            src_y if rp_y.concat_heights else jnp.stack(src_y),
-            rp_y,
-            interpret=interpret,
-            out_dtype=remap_dtype,
-            nc=1,
-            paired=True,
-        )  # per input [1, hmax_i, iw_i] (window-sized)
-        src_uv = [packs_uv[i] for i in idxs]
-        outs_uv = pallas_remap_apply_batched(
-            src_uv if rp_uv.concat_heights else jnp.stack(src_uv),
-            rp_uv,
-            interpret=interpret,
-            out_dtype=remap_dtype,
-            nc=2,
-            paired=True,
-        )  # per input [2, hmax_i/2, iw_i/2]
-        for i, wy, wuv in zip(idxs, outs_y, outs_uv):
-            warped_y[i] = wy
-            warped_uv[i] = wuv
+        dt = gather_dtype(plan.blend_kind, plan.compute_dtype, i, plan.num_inputs)
+        # per input [1, hmax_i, iw_i] and [2, hmax_i/2, iw_i/2]
+        warped_y.append(
+            remap_apply_packed(pack_planes([yf]), plan.remaps[i], nc=1, out_dtype=dt)
+        )
+        warped_uv.append(
+            remap_apply_packed(
+                pack_planes([uf, vf]), plan.remaps_uv[i], nc=2, out_dtype=dt
+            )
+        )
     return _postwarp_band_yuv(
         plan, warped_y, warped_uv, gains_in, out_format
     )
 
 
-def _stitch_band_yuv_multi(plan: ShardedPlan, frame_sets, interpret,
-                           out_format, gains_in_list=None):
-    """B frame sets through ONE pallas launch per plane per size group
-    (frames_axis grid) — the data-axis launch amortization (VERDICT r4
-    next #1/#2): per-launch (~0.7 ms) and dispatch fixed costs divide
-    by B while prep and post-warp stay per-frame XLA work.  Returns
-    (stacked band outputs [B, ...], stacked gains [B, ncam])."""
-    assert out_format == "yuv420p"
-    B = len(frame_sets)
-    ncam = plan.num_inputs
-    ntotal = ncam + plan.num_overlays
-    remap_dtype = (
-        plan.compute_dtype if plan.blend_kind == "multiband" else "float32"
-    )
-    preps = [_prep_band_yuv(plan, fs) for fs in frame_sets]
-
-    warped_y = [[None] * ntotal for _ in range(B)]
-    warped_uv = [[None] * ntotal for _ in range(B)]
-    for idxs, rp_y, rp_uv in zip(
-        plan.group_idx, plan.remap_groups, plan.remap_uv_groups
-    ):
-        if rp_y.concat_heights:
-            src_y = [
-                jnp.stack([preps[b][0][i] for b in range(B)]) for i in idxs
-            ]
-            src_uv = [
-                jnp.stack([preps[b][1][i] for b in range(B)]) for i in idxs
-            ]
-        else:
-            src_y = jnp.stack(
-                [
-                    jnp.stack([preps[b][0][i] for i in idxs])
-                    for b in range(B)
-                ]
-            )
-            src_uv = jnp.stack(
-                [
-                    jnp.stack([preps[b][1][i] for i in idxs])
-                    for b in range(B)
-                ]
-            )
-        outs_y = pallas_remap_apply_batched(
-            src_y,
-            rp_y,
-            interpret=interpret,
-            out_dtype=remap_dtype,
-            nc=1,
-            paired=True,
-            frames_axis=True,
-        )  # per input [B, 1, hmax_i, iw_i]
-        outs_uv = pallas_remap_apply_batched(
-            src_uv,
-            rp_uv,
-            interpret=interpret,
-            out_dtype=remap_dtype,
-            nc=2,
-            paired=True,
-            frames_axis=True,
-        )
-        for i, wy, wuv in zip(idxs, outs_y, outs_uv):
-            for b in range(B):
-                warped_y[b][i] = wy[b]
-                warped_uv[b][i] = wuv[b]
-
-    outs, gains = [], []
-    for b in range(B):
-        gi = None if gains_in_list is None else gains_in_list[b]
-        ob, gb = _postwarp_band_yuv(
-            plan, warped_y[b], warped_uv[b], gi, out_format
-        )
-        outs.append(ob)
-        gains.append(gb)
-    return jnp.stack(outs), jnp.stack(gains)
-
-
 def _postwarp_band_yuv(plan: ShardedPlan, warped_y, warped_uv, gains_in,
                        out_format):
-    """Everything after the fans: chroma centering, gains, per-plane
+    """Everything after the gathers: chroma centering, gains, per-plane
     window blends, overlays, resize, packed band output."""
     ncam = plan.num_inputs
     ext, Wp, halo, bh = plan.ext, plan.Wp, plan.halo, plan.bh
@@ -2210,8 +1784,7 @@ def _postwarp_band_yuv(plan: ShardedPlan, warped_y, warped_uv, gains_in,
                 halo=halo,
                 bh=bh,
                 S=plan.S,
-                emulate=plan.emulate_space,
-            )
+                )
         if plan.split_level_uv >= 0:
             coarse_uv = dict(
                 L=plan.split_level_uv,
@@ -2221,8 +1794,7 @@ def _postwarp_band_yuv(plan: ShardedPlan, warped_y, warped_uv, gains_in,
                 halo=halo2,
                 bh=bh2,
                 S=plan.S,
-                emulate=plan.emulate_space,
-            )
+                )
     band_y = _blend_windows(
         plan,
         warped_y[:ncam],
@@ -2300,9 +1872,10 @@ class ShardedMapper:
     """Stitch batches of frame sets over a ('data', 'space') mesh.
 
     Same product as the single-chip ``Mapper`` (mapper.cpp:47-311
-    semantics): per-size-group batched Pallas remap (interpret mode on
-    CPU meshes), pairwise or blocks gains, multiband/feather blend,
-    overlays, scale_output resize, YUV420P or NV12 frames."""
+    semantics): per-input packed remap gathers, pairwise or blocks
+    gains, multiband/feather blend, overlays, scale_output resize,
+    YUV420P or NV12 frames.  ``pipeline=None`` picks yuv420 whenever the
+    output format and geometry allow it, like the Mapper's "auto"."""
 
     def __init__(
         self,
@@ -2312,20 +1885,18 @@ class ShardedMapper:
         blend: int = 128,
         enable_gain: bool = True,
         out_format: str = "yuv420p",
-        blend_dtype: str = "float32",
+        blend_dtype: str = DEFAULT_BLEND_DTYPE,
         pipeline: str = None,
         scale_output=None,
         frame_format: str = "yuv420p",
         coarse_split=None,
-        src_windows: bool = False,
     ):
         assert out_format in ("yuv420p", "rgb")
         W0, H0 = mt.out_size
         osz = tuple(scale_output) if scale_output else (W0, H0)
         if pipeline is None:
-            # production default: the YUV420-native paired-fan pipeline
-            # whenever the output format and geometry allow it (VERDICT
-            # r2 item 2); rgb output or odd geometry falls back
+            # the YUV420-native pipeline whenever the output format and
+            # geometry allow it; rgb output or odd geometry use rgb
             even = all(h % 2 == 0 and w % 2 == 0 for h, w in in_sizes)
             pipeline = (
                 "yuv420"
@@ -2352,9 +1923,7 @@ class ShardedMapper:
             scale_output=scale_output,
             frame_format=frame_format,
             coarse_split=coarse_split,
-            src_windows=src_windows,
         )
-        interpret = jax.devices()[0].platform != "tpu"
 
         # per-leaf specs: S-leading leaves shard over 'space', the rest
         # replicate
@@ -2393,23 +1962,7 @@ class ShardedMapper:
                 plan_local,
                 plan_specs,
             )
-            if plan_sq.pipeline == "yuv420" and nb > 1:
-                # the per-device 'data' batch rides ONE frames_axis
-                # pallas grid per plane per size group — per-launch and
-                # dispatch fixed costs divide by nb (VERDICT r4 #1/#2)
-                return _stitch_band_yuv_multi(
-                    plan_sq,
-                    [get_set(b) for b in range(nb)],
-                    interpret,
-                    out_format,
-                    gains_in_list=(
-                        None
-                        if get_gains is None
-                        else [get_gains(b) for b in range(nb)]
-                    ),
-                )
-            # static unroll over the (small) per-device batch — vmap over
-            # a scalar-prefetch pallas_call is not supported
+            # static unroll over the (small) per-device batch
             band_fn = (
                 _stitch_band_yuv
                 if plan_sq.pipeline == "yuv420"
@@ -2420,7 +1973,6 @@ class ShardedMapper:
                 o, g = band_fn(
                     plan_sq,
                     get_set(b),
-                    interpret,
                     out_format,
                     gains_in=None if get_gains is None else get_gains(b),
                 )
@@ -2472,7 +2024,7 @@ class ShardedMapper:
         # make_array_from_process_local_data, which cannot be sliced
         # per input outside jit
         self._step_stacked = None
-        if len(self.plan.group_idx) == 1:
+        if len(set(map(tuple, in_sizes))) == 1:
 
             @partial(
                 shard_map,

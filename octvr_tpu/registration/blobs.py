@@ -1,14 +1,14 @@
-"""SURF-role multi-scale blob detector + float descriptor, TPU-vectorized.
+"""SURF-role multi-scale blob detector + float descriptor, array-vectorized.
 
 The reference's stitching registration defaults to SURF
 (stitching/src/matchers.cpp:365-389, matchers.hpp:136): a Hessian-based
 blob detector with a gradient-statistics float descriptor.  Its value on
 low-texture rigs (sky, walls, defocus) is that blobs respond where FAST
-corners don't.  This is the TPU-first equivalent, not a SURF port:
+corners don't.  This is an array-first equivalent, not a SURF port:
 
 * determinant-of-Hessian response over a geometric scale stack,
   computed as separable Gaussian convs + central differences for every
-  pixel (VPU-friendly, no integral-image/Haar box tricks — those are
+  pixel (elementwise-friendly, no integral-image/Haar box tricks — those are
   CPU-era approximations of exactly these Gaussian derivatives),
 * 3x3x3 (scale, y, x) non-max suppression as shifted-stack maxima,
 * fixed per-grid-cell keypoint budgets via top_k (static shapes, no

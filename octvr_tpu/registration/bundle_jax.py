@@ -14,7 +14,7 @@ Jacobian :579-601).  This path is the scale-out design from SURVEY.md §7:
   runs inside jit as a ``lax.while_loop`` — one host round-trip per
   *phase*, not per iteration;
 * with a mesh, the match axis shards over devices and the tiny [4n, 4n]
-  / [4n] reductions psum over ICI (jax.shard_map).
+  / [4n] reductions psum across devices (jax.shard_map).
 """
 
 from functools import partial
@@ -27,6 +27,12 @@ from .bundle import BundleData, inv_rodrigues, rodrigues
 
 __all__ = ["bundle_adjust_ray_jax"]
 
+# every product here runs at HIGHEST precision: the residuals are
+# unit-ray differences of ~1e-3 rad (a pixel at f ~ 1000), so TF32's
+# ~1e-3 relative rounding would be the size of the signal, and the
+# result is held to |drms| < 1e-3 against the float64 NumPy adjuster
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _rodrigues_jnp(rvec):
     theta = jnp.sqrt(jnp.sum(rvec * rvec) + 1e-12)
@@ -34,7 +40,7 @@ def _rodrigues_jnp(rvec):
     kx, ky, kz = k[0], k[1], k[2]
     K = jnp.array([[0.0, -kz, ky], [kz, 0.0, -kx], [-ky, kx, 0.0]])
     return (
-        jnp.eye(3) + jnp.sin(theta) * K + (1.0 - jnp.cos(theta)) * (K @ K)
+        jnp.eye(3) + jnp.sin(theta) * K + (1.0 - jnp.cos(theta)) * jnp.matmul(K, K, precision=_HI)
     )
 
 
@@ -49,7 +55,7 @@ def _pair_residual(pi, pj, pt1, pt2, sz1, sz2):
         v = jnp.array(
             [(pt[0] - sz[0] * 0.5) / f, (pt[1] - sz[1] * 0.5) / f, 1.0]
         )
-        w = R @ v
+        w = jnp.matmul(R, v, precision=_HI)
         return w / jnp.linalg.norm(w)
 
     r = ray(pi, pt1, sz1) - ray(pj, pt2, sz2)
@@ -72,7 +78,7 @@ def _norm_eqs(x, cam_i, cam_j, p1, p2, sizes, n, axis=None):
     Ji, Jj = _v_jac(pi, pj, p1, p2, s1, s2)  # [m, 3, 4] x2
 
     def blk(a, b):  # [m, 4, 4]
-        return jnp.einsum("mri,mrj->mij", a, b)
+        return jnp.einsum("mri,mrj->mij", a, b, precision=_HI)
 
     JtJ = jnp.zeros((n, 4, n, 4))
     JtJ = JtJ.at[cam_i, :, cam_i, :].add(blk(Ji, Ji))
@@ -80,8 +86,8 @@ def _norm_eqs(x, cam_i, cam_j, p1, p2, sizes, n, axis=None):
     JtJ = JtJ.at[cam_i, :, cam_j, :].add(blk(Ji, Jj))
     JtJ = JtJ.at[cam_j, :, cam_i, :].add(blk(Jj, Ji))
     Jtr = jnp.zeros((n, 4))
-    Jtr = Jtr.at[cam_i].add(jnp.einsum("mri,mr->mi", Ji, r))
-    Jtr = Jtr.at[cam_j].add(jnp.einsum("mri,mr->mi", Jj, r))
+    Jtr = Jtr.at[cam_i].add(jnp.einsum("mri,mr->mi", Ji, r, precision=_HI))
+    Jtr = Jtr.at[cam_j].add(jnp.einsum("mri,mr->mi", Jj, r, precision=_HI))
     cost = jnp.sum(r * r)
     JtJ = JtJ.reshape(4 * n, 4 * n)
     Jtr = Jtr.reshape(4 * n)

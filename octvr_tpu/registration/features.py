@@ -1,8 +1,8 @@
-"""ORB-style feature detection + description, TPU-vectorized.
+"""ORB-style feature detection + description, array-vectorized.
 
 Re-imagines the reference's grid ORB finder (stitching/src/matchers.cpp:
 389-460) as fixed-shape array ops: FAST-9 corners and Harris responses
-are computed for *every* pixel as elementwise/conv math (VPU-friendly),
+are computed for *every* pixel as elementwise/conv math,
 per-grid-cell top-k replaces the per-cell ORB budget, orientation comes
 from intensity centroids (conv), and descriptors are rotated binary
 tests (rBRIEF).  The binary test pattern is our own seeded random-pair

@@ -1,8 +1,8 @@
 """Pairwise feature matching + robust homography estimation.
 
-MXU-first redesign of BestOf2NearestMatcher (stitching/src/matchers.cpp:
+Matmul-first redesign of BestOf2NearestMatcher (stitching/src/matchers.cpp:
 144-226, 581-658): Hamming distances of +-1 descriptor matrices are one
-matmul on the systolic array; 2-NN + ratio test both directions with set
+matmul; 2-NN + ratio test both directions with set
 union; RANSAC runs as a *batch* of hypotheses (vectorized 4-point DLT +
 inlier counting as matmuls) instead of a sequential loop; confidence is
 Brown-Lowe num_inliers / (8 + 0.3 * num_matches).
@@ -36,8 +36,11 @@ class MatchesInfo:
 
 @partial(jax.jit, static_argnames=())
 def _two_nn(d1, valid1, d2, valid2):
-    """Hamming 2-NN via MXU.  d*: [K, 256] in {-1,+1} (0 rows invalid)."""
-    dot = d1 @ d2.T  # [K1, K2]
+    """Hamming 2-NN via one matmul.  d*: [K, 256] in {-1,+1} (0 rows
+    invalid).  The products are +-1 and the sums integers of magnitude
+    <= 256, exact in TF32 and bf16 alike, so the default precision is
+    exact."""
+    dot = jnp.matmul(d1, d2.T, precision=jax.lax.Precision.DEFAULT)  # [K1, K2]
     ham = (256.0 - dot) * 0.5
     big = 1e9
     ham = jnp.where(valid1[:, None] & valid2[None, :], ham, big)
@@ -221,7 +224,11 @@ def _ransac_score_batch(src, dst, valid, samples, thresh):
     d = jax.vmap(lambda a, i: a[i])(dst, samples)
     hs = _h4p(s, d)  # [P, B, 3, 3]
     pts = jnp.concatenate([src, jnp.ones_like(src[..., :1])], -1)
-    proj = jnp.einsum("pbij,pmj->pbmi", hs, pts)
+    # HIGHEST: these are pixel coordinates, and TF32's ~3 digits would
+    # move a projection by ~1 px at 2000 px, the size of the threshold
+    proj = jnp.einsum(
+        "pbij,pmj->pbmi", hs, pts, precision=jax.lax.Precision.HIGHEST
+    )
     z = proj[..., 2]
     z = jnp.where(jnp.abs(z) < 1e-12, 1e-12, z)
     pp = proj[..., :2] / z[..., None]
@@ -264,7 +271,7 @@ def _two_nn_batch(d1s, v1s, d2s, v2s):
     """Batched 2-NN over a stacked pair axis: [P, K, 256] x2 -> the whole
     pairwise fan-out as ONE device program (the reference parallelizes
     this loop over CPU threads, matchers.cpp:530-555; here every pair's
-    Hamming matrix is an independent MXU matmul XLA schedules freely)."""
+    Hamming matrix is an independent matmul XLA schedules freely)."""
     return jax.vmap(_two_nn)(d1s, v1s, d2s, v2s)
 
 

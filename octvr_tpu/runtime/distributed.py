@@ -1,21 +1,22 @@
 """Multi-host (multi-process) runtime support.
 
 The reference is single-host (SURVEY.md §2.5: no MPI/NCCL anywhere); the
-TPU-native scaling story replaces its 5-thread pipeline with a JAX
-process group over DCN + a ('data', 'space') device mesh over ICI:
+scaling design here replaces its 5-thread pipeline with a JAX process
+group across hosts + a ('data', 'space') device mesh:
 
 * every host runs the same program (SPMD) after
   :func:`init_distributed`;
 * frames fan out on the 'data' axis — each host reads/decodes its own
   slice of the stream locally and contributes it with
-  :func:`global_frame_batch` (no frame bytes cross DCN; only the tiny
-  gain psum and any 'space'-axis halos ride the interconnect);
+  :func:`global_frame_batch` (no frame bytes cross hosts; only the
+  tiny gain psum and the 'space'-axis level-L gather ride the
+  interconnect);
 * the stitched output is fetched per host via
   ``jax.experimental.multihost_utils`` or addressable shards.
 
 Single-process fallback: every function below degrades to the local
 devices when ``jax.process_count() == 1``, so the same driver script
-runs on a laptop, one TPU host, or a pod slice.
+runs on a laptop, one multi-card host, or a cluster.
 """
 
 import numpy as np
@@ -37,9 +38,9 @@ def init_distributed(
     process_id=None,
     local_device_ids=None,
 ):
-    """Initialize the JAX process group (jax.distributed).  On TPU pods
-    the arguments are auto-detected from the environment; on CPU/GPU
-    fleets pass coordinator ``host:port`` + process counts explicitly.
+    """Initialize the JAX process group (jax.distributed).  Pass the
+    coordinator ``host:port`` + process counts explicitly where the
+    environment does not describe the cluster.
     No-op if the group is already initialized or single-process args
     are given."""
     if num_processes == 1:

@@ -11,7 +11,6 @@ import math
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy.ndimage import correlate1d, distance_transform_edt
@@ -32,7 +31,7 @@ _K5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 def np_pyr_down(x):
     """NumPy twin of ops.pyramid.pyr_down for [H, W] arrays (plan-time
     only -- calling the jax version per template shape would trigger one
-    TPU compilation per shape)."""
+    device compilation per shape)."""
     y = correlate1d(x, _K5, axis=0, mode="mirror")
     y = correlate1d(y, _K5, axis=1, mode="mirror")
     return y[::2, ::2]
@@ -117,7 +116,7 @@ class MultiBandPlan:
     # per-frame normalization is a multiply, not a divide (a vector
     # divide is multi-op on the VPU and this array is canvas-sized)
     inv_band_weights: List[np.ndarray]
-    # banded pyramid matrices per axis length (MXU path): {n: [n/2, n]}
+    # banded pyramid matrices per axis length: {n: [n/2, n]}
     down_mats: dict = field(default_factory=dict)
     up_mats: dict = field(default_factory=dict)  # {n: [2n, n]}
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
@@ -136,6 +135,16 @@ register_plan(
 )
 
 
+def gather_dtype(blend_kind, compute_dtype, i, num_inputs):
+    """Dtype input i leaves the remap gather in: the cameras of a
+    multiband blend take its compute dtype straight from the gather
+    (bf16 for a bf16 blend); feather and paste inputs, and overlays
+    (pasted, not blended), stay float32."""
+    if blend_kind == "multiband" and i < num_inputs:
+        return compute_dtype
+    return "float32"
+
+
 def build_multiband_plan(
     seam_masks, rois, num_bands: int, canvas_size, dtype: str = "float32"
 ) -> MultiBandPlan:
@@ -145,8 +154,8 @@ def build_multiband_plan(
     ``dtype="bfloat16"`` stores the weight pyramids / banded matrices in
     bf16 and runs the per-frame pyramid math in bf16 with f32 matmul
     accumulation -- the 16-bit-precision analogue of the reference's
-    CV_16S pyramid blenders (stitching/src/blenders.cpp:594-736), at
-    ~2x MXU throughput and half the HBM traffic."""
+    CV_16S pyramid blenders (stitching/src/blenders.cpp:594-736), with
+    half the memory traffic of float32."""
     assert num_bands >= 1
     result_roi = _union_roi(rois)
     step = 1 << num_bands
@@ -217,11 +226,8 @@ def build_multiband_plan(
         )
     inv_band_weights = [(1.0 / b).astype(np.float32) for b in band_weights]
     if dtype == "bfloat16":
-        # bf16 has no native numpy dtype; go through ml_dtypes (ships
-        # with jax)
-        import ml_dtypes
-
-        bd = np.dtype(ml_dtypes.bfloat16)
+        # bf16 has no native numpy dtype; jax's bfloat16 scalar type is one
+        bd = np.dtype(jnp.bfloat16)
         weight_pyrs = [[p.astype(bd) for p in pyr] for pyr in weight_pyrs]
         inv_band_weights = [b.astype(bd) for b in inv_band_weights]
         down_mats = {k: v.astype(bd) for k, v in down_mats.items()}
@@ -273,14 +279,6 @@ def multiband_blend(plan: MultiBandPlan, imgs, canvas_size):
     for img, roi, aroi, wpyr in zip(imgs, plan.rois, plan.align_rois, plan.weight_pyrs):
         x, y, w, h = roi
         ax, ay, aw, ah = aroi
-        if img.dtype != dtype:
-            # materialize before the dtype cast: letting XLA fuse the
-            # bf16 convert back into the remap/untile producer graph
-            # faults the TPU kernel at 4K scale (BENCH_r01.json).  The
-            # Pallas path avoids this entirely by emitting bf16 tiles
-            # from the kernel, so this branch only fires on the XLA
-            # gather fallback.
-            img = jax.lax.optimization_barrier(img)
         src0 = jnp.zeros((c, ah, aw), dtype=dtype)
         src0 = src0.at[:, y - ay : y - ay + h, x - ax : x - ax + w].set(
             img.astype(dtype)

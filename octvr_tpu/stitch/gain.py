@@ -6,7 +6,7 @@ intersections and counts N(i,j) are precomputed at plan time from the
 template masks at the 0.1 MP working scale; the per-frame work is one
 luminance-norm per image, P masked sums, and a tiny dense solve — all
 on-device inside the jitted stitch step (the reference round-trips the
-sums to the host through shared pinned memory; on TPU the solve is
+sums to the host through shared pinned memory; here the solve is
 cheap enough to stay on-device).
 """
 

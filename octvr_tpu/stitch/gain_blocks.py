@@ -4,7 +4,7 @@ canvas block and bilinearly interpolated into smooth per-pixel gain
 maps, correcting spatially-varying exposure (vignetting remnants,
 lens flare).
 
-TPU-first design: the per-block pairwise systems are assembled from
+Array design: the per-block pairwise systems are assembled from
 block-reduced masked sums (a reshape-reduction, no gather) and solved as
 ONE batched jnp.linalg.solve over all blocks (vmap over the block axis);
 the gain maps are a bilinear upsample of the [nbY, nbX] gain lattice.

@@ -7,9 +7,8 @@ resolution is thrown away by the final subsample — and the input was
 4:2:0 to begin with.  The YUV-native mode (``Mapper(pipeline=
 "yuv420")``) instead:
 
-* remaps **Y at full resolution with a 1-channel fan** (nc=1 — the
-  per-visited-row ALU cost of the Pallas kernel scales with channel
-  count),
+* remaps **Y at full resolution as a 1-channel gather** (nc=1; the
+  gather's unpack and multiply-add work scales with channel count),
 * remaps **U|V packed as one 2-channel plane at half resolution**
   (quarter the tiles) using half-resolution maps — exactly the
   reference's own mobile profile (vr::FastMapper precomputes half-res

@@ -37,7 +37,7 @@ def test_live_session_end_to_end(tmp_path):
                 fh.write(np.asarray(f).tobytes())
 
     out = tmp_path / "pano.yuv"
-    env = dict(os.environ, OCTVR_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [
             sys.executable,

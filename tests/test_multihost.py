@@ -2,7 +2,7 @@
 runtime/distributed.py path executed for real.
 
 Spawns a 2-process `jax.distributed` group on localhost (CPU backend,
-2 forced devices each — the same SPMD code path a TPU pod slice runs),
+2 forced devices each — the same SPMD code path a multi-host cluster runs),
 drives ShardedMapper through init_distributed / make_global_mesh /
 global_frame_batch / local_output_shards, and checks each process's
 assembled output against a single-device Mapper on its own frames.

@@ -98,7 +98,7 @@ def test_preview_consumer_during_stream(tmp_path):
     rig_path = tmp_path / "rig.json"
     rig_path.write_text(json.dumps(rig))
     tmpl = str(tmp_path / "t.npz")
-    env = dict(os.environ, OCTVR_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [
             sys.executable, "-m", "octvr_tpu.cli.dump",

@@ -201,7 +201,7 @@ def _pipeline_golden_f64(mapper, mt, frames):
         rgb = _yuv_to_rgb_f64(buf)
         if ip.vignette is not None:
             rgb = np.clip(rgb * ip.vignette.astype(np.float64)[None], 0, 255)
-        q = np.clip(np.round(rgb), 0, 255)  # pack_rgb 8-bit quantization
+        q = np.clip(np.round(rgb), 0, 255)  # pack_planes 8-bit quantization
         warped.append(
             np.stack(
                 [_remap_image_cpu(q[c], inp.map1, inp.map2) for c in range(3)]

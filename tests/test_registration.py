@@ -20,55 +20,9 @@ from octvr_tpu.registration import (
     wave_correct,
 )
 from octvr_tpu.registration.bundle import inv_rodrigues, rodrigues
+from rigs import render_view, world_tex, yaw_cameras  # noqa: F401
 
 PI = math.pi
-
-
-# ---------------------------------------------------------------- helpers
-
-
-def world_tex(d):
-    """Busy, corner-rich color field over cv-convention ray directions
-    [..., 3] -> [..., 3] uint8-range floats."""
-    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
-    x, y, z = d[..., 0], d[..., 1], d[..., 2]
-    # random per-cell brightness -> L/T junctions everywhere (FAST does
-    # not fire on perfect checkerboard X-corners)
-    a = np.floor((np.arctan2(x, z) + PI) * 64 / PI)
-    b = np.floor((np.arcsin(np.clip(y, -1, 1)) + PI / 2) * 64 / PI)
-    # per-cell pseudo-random brightness with large aperiodic variation so
-    # corners are locally unique (repetitive textures defeat matching)
-    check = ((a * 7919 + b * 104729 + a * b * 337) % 97) / 96.0 * 170 + 30
-    r = check + 35 * np.sin(31 * x + 17 * y) + 30 * np.sin(3.1 * x - 1.7 * z)
-    g = check + 35 * np.cos(23 * y + 11 * z) + 30 * np.cos(2.3 * y + 1.1 * x)
-    bl = check + 35 * np.sin(27 * z + 19 * x) + 30 * np.sin(2.9 * z + 1.3 * y)
-    return np.clip(np.stack([r, g, bl], axis=-1), 0, 255)
-
-
-def render_view(R_cv, f, w, h):
-    """Render a pinhole view (cv convention: ray_world = R @ K^-1 p)."""
-    u, v = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5)
-    d_cam = np.stack(
-        [(u - w / 2) / f, (v - h / 2) / f, np.ones_like(u)], axis=-1
-    )
-    d_world = d_cam @ np.asarray(R_cv).T
-    return world_tex(d_world).astype(np.float32)
-
-
-def yaw_cameras(n, step_deg, f=400.0):
-    """Cameras rotated about the world y axis."""
-    cams = []
-    for k in range(n):
-        a = math.radians(step_deg * k)
-        R = np.array(
-            [
-                [math.cos(a), 0, math.sin(a)],
-                [0, 1, 0],
-                [-math.sin(a), 0, math.cos(a)],
-            ]
-        )
-        cams.append(R)
-    return cams
 
 
 # ----------------------------------------------------------------- tests

@@ -1,11 +1,9 @@
-"""Data-axis frame batching through the sharded engine (VERDICT r4
-next #1/#2): when a device's 'data' shard carries more than one frame
-set, the yuv420 band stitch runs ALL of them through one frames_axis
-pallas grid per plane per size group (launch amortization) — output
-and gains must match the per-frame path exactly."""
+"""Data-axis frame batching through the sharded engine: when a
+device's 'data' shard carries more than one frame set, the band
+stitch runs them all in one program — output and gains must match the
+per-frame path."""
 
 import numpy as np
-import pytest
 
 import jax
 
@@ -14,8 +12,6 @@ from octvr_tpu.stitch import Mapper
 from octvr_tpu.template import compile_rig
 from rigs import two_fisheye_rig
 from test_stitch import render_camera_frames
-
-pytestmark = pytest.mark.slow
 
 
 def test_sharded_data_batch_matches_single_chip():
@@ -32,8 +28,7 @@ def test_sharded_data_batch_matches_single_chip():
     o0, g0 = single.stitch(f0)
     o1, g1 = single.stitch(f1)
 
-    # mesh data=2, space=2 with B=4 -> per-device local batch of 2 ->
-    # the _stitch_band_yuv_multi path
+    # mesh data=2, space=2 with B=4 -> per-device local batch of 2
     mesh = make_mesh(2, 2)
     sm = ShardedMapper(
         mt, sizes, mesh, blend=32, enable_gain=True, pipeline="yuv420"

@@ -21,8 +21,6 @@ from octvr_tpu.template import compile_rig
 from rigs import two_fisheye_rig
 from test_stitch import render_camera_frames
 
-pytestmark = pytest.mark.slow
-
 
 @pytest.fixture(scope="module")
 def setup():

@@ -8,55 +8,18 @@ import pytest
 
 import jax.numpy as jnp
 
-from octvr_tpu.cameras import new_camera
-from octvr_tpu.ops.color import rgb_to_yuv420p
 from octvr_tpu.stitch import Mapper
 from octvr_tpu.template import compile_rig
-from rigs import six_cam_rig, two_fisheye_rig
+from rigs import (  # noqa: F401  (re-exported for the other test files)
+    ground_truth,
+    render_camera_frames,
+    rgb_from_yuv_buf,
+    six_cam_rig,
+    two_fisheye_rig,
+    world_color,
+)
 
 PI = math.pi
-
-
-def world_color(ll):
-    """Smooth color field on the sphere (analytic ground truth)."""
-    lon, lat = ll[..., 0], ll[..., 1]
-    r = (np.sin(2 * lon) * 0.5 + 0.5) * 200 + 20
-    g = (np.cos(lat) * 0.5 + 0.5) * 200 + 20
-    b = (np.sin(lat + lon) * 0.5 + 0.5) * 200 + 20
-    return np.stack([r, g, b], -1).astype(np.float32)
-
-
-def render_camera_frames(rig, exposure_gains=None):
-    """Render what each camera sees of the analytic world as YUV420P."""
-    frames = []
-    for k, spec in enumerate(rig["inputs"]):
-        cam = new_camera(spec["type"], spec["options"])
-        w = spec["options"].get("width", 800)
-        h = spec["options"].get("height", 800)
-        xs = (np.arange(w) + 0.5) / w
-        ys = (np.arange(h) + 0.5) / h
-        grid = np.stack(np.meshgrid(xs, ys), -1)
-        ll = cam.image_to_obj(grid)
-        rgb = world_color(ll)
-        if exposure_gains is not None:
-            rgb = rgb * exposure_gains[k]
-        rgb = np.clip(rgb, 0, 255)
-        frames.append(np.asarray(rgb_to_yuv420p(jnp.asarray(rgb))))
-    return frames
-
-
-def ground_truth(out_w, out_h):
-    out_cam = new_camera("equirectangular", {})
-    xs = np.arange(out_w) / out_w
-    ys = np.arange(out_h) / out_h
-    gll = out_cam.image_to_obj(np.stack(np.meshgrid(xs, ys), -1))
-    return world_color(gll)
-
-
-def rgb_from_yuv_buf(buf):
-    from octvr_tpu.ops.color import yuv420p_to_rgb
-
-    return np.asarray(yuv420p_to_rgb(jnp.asarray(buf)))
 
 
 @pytest.fixture(scope="module")
@@ -230,7 +193,6 @@ def test_multiband_bf16_matches_f32(two_cam_setup):
     assert np.percentile(diff, 99.9) <= 4.0
 
 
-@pytest.mark.slow
 def test_yuv420_pipeline_matches_rgb(two_cam_setup):
     """pipeline='yuv420' (full-res 1-channel Y fan + half-res 2-channel
     chroma fan, separate blends, direct YUV420P output — the reference
@@ -268,7 +230,6 @@ def test_yuv420_pipeline_matches_rgb(two_cam_setup):
     assert err.mean() < 3.0, err.mean()
 
 
-@pytest.mark.slow
 def test_yuv420_pipeline_feather(two_cam_setup):
     rig, mt, sizes = two_cam_setup
     frames = render_camera_frames(rig)

@@ -11,8 +11,6 @@ import pytest
 
 import jax.numpy as jnp
 
-pytestmark = pytest.mark.slow
-
 PI = math.pi
 
 
